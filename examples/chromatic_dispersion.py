@@ -8,13 +8,7 @@ them out across a baffle, shortest wavelengths deflected furthest.
 Run:  python examples/chromatic_dispersion.py [--show]
 """
 
-import os
 import sys
-
-import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
 import numpy as np
 

@@ -1,19 +1,13 @@
 """Collimating a point source with a biconvex lens.
 
 Port of the reference example (/root/reference/examples/convex_collimator.py)
-onto the TPU-native framework: a cone of rays from the lens's focal point
+onto this framework: a cone of rays from the lens's focal point
 exits the lens collimated and lands on a baffle at x = 1.
 
 Run:  python examples/convex_collimator.py [--show]
 """
 
-import os
 import sys
-
-import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
 import numpy as np
 

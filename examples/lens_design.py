@@ -18,13 +18,7 @@ optimizing log-magnitudes (the CSG structure is static; see thick_lens).
 Run:  python examples/lens_design.py [--steps N] [--show]
 """
 
-import os
 import sys
-
-import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
 import jax.numpy as jnp
 import numpy as np
@@ -149,11 +143,10 @@ def main(steps: int = 300, show: bool = False) -> None:
     with fresh_ids():
         imager_id = float(build(theta0)[-1].get_id())
 
-    # SoftFocusError is a recognized loss descriptor: C1 vignetting
-    # weights (spike-free at f32 — design notes) AND, on TPU, the
-    # loss-fused Pallas backward (no record-cotangent buffer).  On this
-    # detector the weights saturate at 1 for all paraxial rays, so values
-    # match plain focus_error until a marginal ray nears the edge.
+    # SoftFocusError: C1 vignetting weights (spike-free at f32 — design
+    # notes).  On this detector the weights saturate at 1 for all paraxial
+    # rays, so values match plain focus_error until a marginal ray nears
+    # the edge.
     objective = build_objective(
         build,
         rays,

@@ -7,7 +7,7 @@ count, but each component costs a Python-time pass.  Here all 256
 lenslets share one CSG shape, so the engine's wide-scene path
 (pyrayt_tpu/tracer/engine.py) batches the whole array into a single
 (trees x rays) interval-CSG sweep: compile time is flat in the lenslet
-count, and the sweep is one dense VPU program.
+count, and the sweep is one dense elementwise program.
 
 The script:
 1. traces a collimated square beam through the array to its focal plane,
@@ -16,13 +16,10 @@ The script:
 3. differentiates the mean spot size with respect to the (shared) lenslet
    radius of curvature — the gradient a lenslet-array designer descends —
 4. and, with ``--optimize N``, actually descends it: adam walks a 15%%
-   detuned radius back toward nominal.  On TPU every step runs the WIDE
-   fused forward + STAGED backward kernels at any array size (last
-   hardware run, 8x8 / 2^18 rays / 30 steps: r 2.300 -> 2.028 mm against
-   nominal 2.0).  ``--optimize-per-lenslet N`` runs the freeform mode:
-   every lenslet gets its own randomly detuned radius and adam descends
-   all n*n radii + the detector plane jointly (last hardware run, 8x8 /
-   2^18 rays / 30 steps / 65 params: mean |r - nominal| 0.239 -> 0.066 mm).
+   detuned radius back toward nominal.  Each step is ``jax.grad`` of the
+   XLA engine's batched wide path.  ``--optimize-per-lenslet N`` runs the
+   freeform mode: every lenslet gets its own randomly detuned radius and
+   adam descends all n*n radii + the detector plane jointly.
 
 Run:  python examples/microlens_array.py [--n 16] [--rays 65536] [--optimize 30]
       python examples/microlens_array.py --optimize-per-lenslet 30
@@ -31,14 +28,9 @@ Run:  python examples/microlens_array.py [--n 16] [--rays 65536] [--optimize 30]
            gradient accumulation at scale)
 """
 
-import os
 import sys
 
 import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -117,10 +109,8 @@ def main(n=16, n_rays=1 << 16, steps=0):
           f"({n * n} lenslets, one backward pass)")
 
     # --- optional: descend it.  Start the shared radius detuned 15% high
-    # and let adam walk the whole ARRAY back to focus — on TPU every step
-    # runs the wide fused forward + backward kernels (any array size: the
-    # STAGED backward covers scenes past the monolithic kernel's ~300-leaf
-    # cap; see docs/design_notes.md "Wide gradients").
+    # and let adam walk the whole ARRAY back to focus (each step is one
+    # forward + backward pass of the batched wide path)
     if steps:
         from pyrayt_tpu.analysis import optimize
 
@@ -141,9 +131,9 @@ def main_per_lenslet(n=16, n_rays=1 << 16, steps=30, seed=3):
     """Freeform-array design: ``n*n`` INDEPENDENT lenslet radii (plus the
     detector-plane position) optimized jointly.  Each lenslet starts with
     its own random detuning, so recovery requires genuinely per-tree
-    gradients — the wide backward accumulates one cotangent per lenslet
-    per step (tests/test_ops/test_fused_staged_grad.py pins them against
-    the XLA engine at f64).  The reference's FD loop would need
+    gradients — the backward pass accumulates one cotangent per lenslet
+    per step (tests/test_tracer/test_wide_scenes.py pins them against
+    finite differences at f64).  The reference's FD loop would need
     ``n*n + 1`` re-traces per step for the same search direction
     (/root/reference/examples/lens_design.ipynb cells 28-33)."""
     import numpy as np

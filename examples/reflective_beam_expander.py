@@ -15,13 +15,7 @@ physics, and beam metrics on the result frame.
 Run:  python examples/reflective_beam_expander.py [--show]
 """
 
-import os
 import sys
-
-import jax
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
 import numpy as np
 

@@ -1,4 +1,4 @@
-"""pyrayt_tpu — a TPU-native differentiable optical ray tracing framework.
+"""pyrayt_tpu — a differentiable optical ray tracing framework in JAX.
 
 A ground-up JAX/XLA re-design with the full capability surface of PyRayT
 (the reference non-sequential optical ray tracer): lenses, mirrors and
@@ -6,7 +6,7 @@ prisms built by constructive solid geometry, dispersive Sellmeier glasses,
 bundle sources, and a trace engine producing the same 15-column results
 DataFrame — plus what the reference never had: end-to-end
 differentiability (``jax.grad`` through a whole trace), single-program
-batched execution on TPU, and ray-axis sharding across device meshes.
+batched execution on the GPU, and ray-axis sharding across device meshes.
 
 Public namespace parity with ``pyrayt``:
 

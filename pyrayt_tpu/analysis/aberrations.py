@@ -9,8 +9,12 @@ design use the on-device versions in pyrayt_tpu.analysis.metrics.
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
-import pandas as pd
+
+if TYPE_CHECKING:  # pandas is imported where a frame is built
+    import pandas as pd
 
 __all__ = ["spherical_aberration", "chromatic_aberration", "coma"]
 
@@ -64,6 +68,8 @@ def spherical_aberration(
             results["generation"] == 0, results["id"].isin(imager_rays["id"])
         )
     ]["y0"]
+    import pandas as pd
+
     return pd.DataFrame({"radius": np.asarray(radii), "focus": intercept})
 
 
@@ -87,6 +93,8 @@ def chromatic_aberration(
     results = tracer.trace()
 
     imager_rays = _imager_rays(results)
+    import pandas as pd
+
     return pd.DataFrame(
         {
             "wavelength": np.asarray(imager_rays["wavelength"]),

@@ -5,12 +5,13 @@ designs ... and reloading previous simulations" as future work
 (/root/reference/readme.md:97); SURVEY.md section 5.4 makes it a build
 requirement.  Scope here matches the domain: optimization state is a tiny
 pytree (scene params, optax state, PRNG key, step counter), so checkpoints
-are single msgpack files written atomically — no orbax async machinery
-needed for O(kB) payloads.
+are single ``.npz`` files written atomically — no async machinery needed
+for O(kB) payloads.
 
 * :func:`save_checkpoint` / :func:`restore_checkpoint` — generic pytree
-  persistence (flax.serialization under the hood; restore takes a template
-  with the target structure, so optax NamedTuple states round-trip).
+  persistence: one numpy array per leaf, keyed by its path in the tree;
+  restore takes a template with the target structure, so optax NamedTuple
+  states round-trip.
 * :func:`pyrayt_tpu.analysis.optimize.optimize` accepts
   ``checkpoint_path``/``checkpoint_every`` and resumes transparently.
 * Monte-Carlo sources (Lamp/StaticLamp) replay deterministically from a
@@ -22,11 +23,15 @@ from __future__ import annotations
 import os
 import tempfile
 
-import flax.serialization
 import jax
 import numpy as np
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
+
+
+def _keyed_leaves(tree):
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    return [(jax.tree_util.keystr(path), leaf) for path, leaf in leaves], treedef
 
 
 def save_checkpoint(path: str, state) -> None:
@@ -35,14 +40,14 @@ def save_checkpoint(path: str, state) -> None:
     The write goes to a temp file in the same directory followed by an
     atomic rename, so a killed process never leaves a torn checkpoint.
     """
-    state = jax.tree_util.tree_map(np.asarray, state)
-    blob = flax.serialization.to_bytes(state)
+    leaves, _ = _keyed_leaves(state)
+    arrays = {key: np.asarray(leaf) for key, leaf in leaves}
     directory = os.path.dirname(os.path.abspath(path))
     os.makedirs(directory, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".ckpt.tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            f.write(blob)
+            np.savez(f, **arrays)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
@@ -54,19 +59,21 @@ def restore_checkpoint(path: str, like):
 
     ``like`` is a template with the target structure (e.g. a freshly
     initialized ``(theta0, optimizer.init(theta0), 0)`` tuple); returns the
-    same structure filled with the stored values, or ``None`` when the file
-    does not exist.
+    same structure filled with the stored numpy values, or ``None`` when the
+    file does not exist.
     """
     if not os.path.exists(path):
         return None
-    with open(path, "rb") as f:
-        blob = f.read()
-    return flax.serialization.from_bytes(like, blob)
+    leaves, treedef = _keyed_leaves(like)
+    with np.load(path) as stored:
+        values = [stored[key] for key, _ in leaves]
+    return jax.tree_util.tree_unflatten(treedef, values)
 
 
 def latest_step(path: str) -> int:
-    """The ``step`` field of a checkpoint file, or -1 when absent."""
-    state = restore_checkpoint(path, None)
-    if state is None or "step" not in state:
+    """The ``step`` entry of a checkpointed dict, or -1 when absent."""
+    if not os.path.exists(path):
         return -1
-    return int(state["step"])
+    key = jax.tree_util.keystr((jax.tree_util.DictKey("step"),))
+    with np.load(path) as stored:
+        return int(stored[key]) if key in stored.files else -1

@@ -1,7 +1,7 @@
 """Finite-difference gradient validation.
 
 The reference has no gradients at all; FD-validated gradients are a
-north-star requirement of the TPU build (BASELINE.md).  This harness
+north-star requirement of this build (BASELINE.md).  This harness
 compares ``jax.grad`` of any scalar loss over a parameter pytree against
 central finite differences, leaf by leaf.
 """

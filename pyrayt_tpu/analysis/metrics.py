@@ -255,14 +255,12 @@ def soft_focus_error(
 
 
 # ---------------------------------------------------------------------------
-# Loss descriptors: hashable objects that BEHAVE like the plain metric
-# closures (call them on a TraceResult) but that the fused gradient path
-# can recognize and differentiate in-kernel — the record-cotangent of
-# these losses is a closed-form function of the records plus a handful of
-# global scalars, so the backward Pallas kernel computes it in VMEM
-# instead of XLA materializing a (G, 15, n) cotangent buffer through HBM
-# (measured 2.4 ms/step of pure buffer traffic at 2^20 rays on v5e — see
-# docs/design_notes.md).  Use them anywhere a loss_fn is accepted.
+# Loss descriptors: hashable, comparable objects that BEHAVE like the plain
+# metric closures (call them on a TraceResult).  Their record cotangent is
+# a closed-form function of the records plus a handful of global scalars,
+# which is what a custom_vjp that never materializes the (G, 15, n)
+# cotangent buffer would build on (ROADMAP).  Use them anywhere a loss_fn
+# is accepted.
 # ---------------------------------------------------------------------------
 
 

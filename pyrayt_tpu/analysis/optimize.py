@@ -1,6 +1,6 @@
 """Gradient-based lens design.
 
-TPU-native replacement for the reference's scipy.optimize loop
+Replacement for the reference's scipy.optimize loop
 (examples/lens_design.ipynb cells 28-33), which re-traced the whole system
 per objective evaluation with finite-difference search directions.  Here the
 objective — rebuild scene from parameters -> trace -> metric — is one jitted
@@ -38,48 +38,18 @@ def build_objective(
     trace, under ``fresh_ids`` so the flattened scene spec — and therefore
     the compiled program — is identical every call (no recompilation).
 
-    Engine dispatch follows ``config.use_fused`` exactly like
-    engine.trace_rays, but reverse-mode capable: on TPU, packed-material
-    scenes run the fused Pallas forward + backward kernels
-    (ops/fused_grad.py, ~12x the XLA scan gradient step); everything else
-    differentiates the XLA engine.
+    Gradients differentiate the XLA scan engine (``config.remat``
+    trades recomputation for memory); ``fixed_loop`` is forced on.
     """
-    from pyrayt_tpu.ops import fused_grad
-    from pyrayt_tpu.ops import fused_trace as ft
-
     config = config or TraceConfig(fixed_loop=True)
     if not config.fixed_loop:
         config = TraceConfig(**{**config.__dict__, "fixed_loop": True})
-
-    # recognized loss descriptors (metrics.RmsSpotRadius / FocusError) take
-    # the loss-fused backward: the record cotangent is synthesized in-kernel
-    # from a row of scalars instead of a (G, 15, n) HBM buffer
-    fused_loss = fused_grad.loss_plan(loss_fn) is not None
-
-    def _pick_trace(scene, itemsize):
-        if ft.pick_fused(scene.spec, config, itemsize, need_grad=True):
-            interpret = not ft.on_tpu()
-            if fused_loss:
-                return fused_grad.build_fused_value_and_grad_fn(
-                    scene.spec, scene.materials, config, loss_fn,
-                    interpret=interpret,
-                ), True
-            return fused_grad.build_fused_vjp_trace_fn(
-                scene.spec, scene.materials, config, interpret=interpret
-            ), False
-        return engine.build_trace_fn(scene.spec, scene.materials, config), False
-
-    import jax.numpy as jnp
-
-    itemsize = jnp.dtype(rays.positions.dtype).itemsize
 
     def objective(theta):
         with fresh_ids():
             components = build_fn(theta)
             scene = compile_scene(components)
-        trace, is_fused_loss = _pick_trace(scene, itemsize)
-        if is_fused_loss:
-            return trace(scene.params, rays)
+        trace = engine.build_trace_fn(scene.spec, scene.materials, config)
         return loss_fn(trace(scene.params, rays))
 
     return objective

@@ -2,7 +2,7 @@
 
 Parity with pyrayt/components.py:13-662: the same CSG recipes (thick_lens,
 mirrors, prism, baffle/aperture) and the same Source hierarchy, built on
-the TPU scene-builder objects.  All geometry math is jnp so factories can
+the scene-builder objects.  All geometry math is jnp so factories can
 be called with traced parameters inside ``jax.grad`` (differentiable lens
 design) — wrap rebuilds in ``pyrayt_tpu.scene.fresh_ids()``.
 
@@ -425,7 +425,7 @@ def microlens_array(
     """``ny x nx`` grid of plano-convex lenslets in the YZ plane, optical
     axes +X, centered on the origin.  Returns the component list.
 
-    TPU-native extra with no factory counterpart in the reference — there a
+    An extra with no factory counterpart in the reference — there a
     user would loop ``plano_convex_lens(...).move_y(...).move_z(...)``
     over the arbitrary-component-list trace loop
     (/root/reference/pyrayt/_pyrayt.py:377-392).  Here every lenslet shares
@@ -437,9 +437,9 @@ def microlens_array(
     one shared radius (scalar) or ``ny * nx`` independent per-lenslet radii
     (a 1-D array/sequence in row-major ``(iy, ix)`` order): the freeform-
     array workload.  Per-lenslet values keep the lenslets batchable (the
-    wide plan groups by CSG *shape*, not parameter values), and the wide
-    backward accumulates each lenslet's own cotangent
-    (tests/test_ops/test_fused_staged_grad.py).
+    wide plan groups by CSG *shape*, not parameter values), and the
+    gradient accumulates each lenslet's own cotangent
+    (tests/test_tracer/test_wide_scenes.py).
     """
     if material is None:
         material = matl.glass["ideal"]
@@ -489,8 +489,8 @@ class Source(WorldObject, abc.ABC):
         (parity: components.py:481-496)."""
         ray_set = self._local_ray_generation(n_rays)
         tx = jnp.asarray(self._world_coordinate_transform)
-        # full-precision transform: the TPU default matmul precision is
-        # bfloat16 passes, which would quantize every source position
+        # full-precision transform: the GPU's default f32 matmul precision
+        # may be TF32, which would quantize every source position
         positions = transform_rays(tx, ray_set.positions)
         directions = transform_rays(tx, ray_set.directions)
         directions = directions / jnp.linalg.norm(directions, axis=0)
@@ -529,7 +529,7 @@ class LineOfRays(Source):
 class GridOfRays(Source):
     def __init__(self, width=1, height=1, wavelength=0.633, *args, **kwargs):
         """Parallel +X rays on a near-square grid spanning ``width`` (Y) x
-        ``height`` (Z).  2-D analog of LineOfRays (TPU-native extra — the
+        ``height`` (Z).  2-D analog of LineOfRays (an extra — the
         reference has no areal collimated source); rays fill the grid
         row-major, so ``n_rays`` need not be a perfect square."""
         super().__init__(wavelength, *args, **kwargs)
@@ -612,7 +612,7 @@ class Lamp(Source):
         rectangle, directions inverse-CDF sampled on the sphere cap,
         intensity = 100 cos(theta) (parity: components.py:616-654).
 
-        TPU deviation: randomness uses JAX's counter-based PRNG with an
+        Deviation: randomness uses JAX's counter-based PRNG with an
         explicit ``seed`` (reference uses global np.random state).
         """
         super().__init__(*args, **kwargs)

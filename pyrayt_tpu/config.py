@@ -1,17 +1,41 @@
 """Trace configuration.
 
 The reference configures via two class attributes and constructor args
-(pyrayt/_pyrayt.py:190-196, SURVEY.md section 5.6); the TPU build threads
+(pyrayt/_pyrayt.py:190-196, SURVEY.md section 5.6); this package threads
 one frozen dataclass through the engine instead.  It is hashable so it can
 key the jit cache.
+
+Also here: where the scripts that drive the GPU (chip_smoke.py, bench.py)
+keep JAX's persistent compile cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
-__all__ = ["TraceConfig"]
+__all__ = ["TraceConfig", "compile_cache_dir", "enable_compile_cache"]
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def compile_cache_dir() -> str:
+    """``$JAX_COMPILATION_CACHE_DIR`` when set, else ``<repo>/.jax_cache``
+    (a fixed path: the cache key includes it, so a moving one never hits)."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        _REPO_ROOT, ".jax_cache"
+    )
+
+
+def enable_compile_cache() -> str:
+    """Point JAX's persistent compile cache at :func:`compile_cache_dir`;
+    returns the directory."""
+    import jax
+
+    path = compile_cache_dir()
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,20 +55,13 @@ class TraceConfig:
     #: differentiable, no early exit.  False -> lax.while_loop with
     #: all-rays-dead early exit (forward-only, fastest).
     fixed_loop: bool = False
-    #: fused Pallas kernel dispatch for forward traces via trace_rays():
-    #: None = auto (fused on TPU when the scene supports it), True = force
-    #: (raises if unsupported), False = always the XLA engine.
+    #: fused GPU kernel dispatch for forward traces via trace_rays():
+    #: None = auto (the kernel for supported f32 scenes on the GPU), True =
+    #: force (raises where the kernel cannot run), False = the XLA engine.
     use_fused: Optional[bool] = None
     #: rematerialize the generation step under reverse-mode AD (scan driver
     #: only): saves just the inter-generation ray carry and recomputes the
     #: step's intermediates in the backward pass — trades ~1 extra forward
-    #: step for not round-tripping every intersection/CSG intermediate
-    #: through HBM.  No effect on forward-only traces.
+    #: step for not keeping every intersection/CSG intermediate in device
+    #: memory.  No effect on forward-only traces.
     remat: bool = False
-    #: WIDE-scene backward selection (scenes past the narrow kernel's leaf
-    #: cap): None = auto = the STAGED multi-dispatch backward (measured
-    #: faster than the monolithic wide kernel at every size, and the only
-    #: path that compiles past ~300 leaves); "fused" = the monolithic wide
-    #: backward kernel (raises past its compile cap).  See
-    #: ops/fused_grad._run_bwd_staged and docs/design_notes.md.
-    wide_grad: Optional[str] = None

@@ -1,6 +1,6 @@
 """Constructive solid geometry interval engine.
 
-TPU-native re-design of the reference's parity-count CSG combiner
+Re-design of the reference's parity-count CSG combiner
 (tinygfx/g3d/csg.py:13-61) plus the surface-id co-sorting used by compound
 surfaces (tinygfx/g3d/csg.py:118-160).  The whole CSG tree of a component is
 known statically at scene-compile time, so tree evaluation unrolls into a
@@ -12,10 +12,10 @@ cumulative-summing +/-1 (entering/leaving a solid) yields the number of
 solids containing the ray at each event.  Boundary events of the combined
 solid are kept, everything else becomes ``+inf``.
 
-TPU mapping: the reference's argsort + fancy-index merge becomes a static
+Device mapping: the reference's argsort + fancy-index merge becomes a static
 Batcher comparator network (pyrayt_tpu/ops/sortnet.py) that moves the
 entry/exit parity signs and surface ids along as payload rows — pure
-minimum/maximum/where VPU ops, no device sorts, no gathers.  The parity
+minimum/maximum/where elementwise ops, no device sorts, no gathers.  The parity
 signs are known per *source row* before the merge (row i of a sorted
 even-length hit list is an entry iff i is even — exactly the reference's
 ``order & 1`` trick at csg.py:38-48), which is what removes the argsort.

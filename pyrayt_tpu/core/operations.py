@@ -1,4 +1,4 @@
-"""Vector math core for the TPU ray tracer.
+"""Vector math core for the ray tracer.
 
 Pure, jit/grad/vmap-safe JAX re-implementations of the reference's vector
 kernels (reference: tinygfx/g3d/operations.py:4-162).  Unlike the reference
@@ -32,12 +32,12 @@ __all__ = [
     "refract",
 ]
 
-# 4x4 homogeneous transforms are applied at full input precision: on TPU the
-# default matmul precision runs bfloat16 passes, which quantizes every ray
-# origin/direction/normal to 8 mantissa bits (observed: 0.4 -> 0.40039062 on
-# hardware).  The contractions are K=4 — far below MXU efficiency anyway —
-# so full precision costs nothing measurable while keeping the f32
-# production path at f32 accuracy.
+# 4x4 homogeneous transforms are applied at full input precision: on the GPU
+# the default f32 matmul precision may run TF32, which keeps 10 mantissa
+# bits and would quantize every ray origin/direction/normal to about three
+# decimal digits.  The contractions are K=4 — far below tensor-core
+# efficiency anyway — so full precision costs nothing measurable while
+# keeping the f32 production path at f32 accuracy.
 TRANSFORM_PRECISION = lax.Precision.HIGHEST
 
 
@@ -55,9 +55,9 @@ def affine_inverse(matrices):
     ``matrices`` is ``(..., 4, 4)`` with last row ``(0, 0, 0, 1)`` (true for
     every transform the builders produce: rotations, translations, scales,
     shears).  The 3x3 block inverts by adjugate/determinant — no LU
-    decomposition, so it maps cleanly onto TPU vector units (XLA's generic
-    ``linalg.inv`` lowers to LuDecomposition, which the TPU compiler
-    rejects for f64 and serializes for f32) and differentiates smoothly.
+    decomposition, so it stays elementwise work that fuses (XLA's generic
+    ``linalg.inv`` lowers to an LU decomposition) and differentiates
+    smoothly.
     """
     m = jnp.asarray(matrices)
     a = m[..., :3, :3]
@@ -87,7 +87,7 @@ def affine_inverse(matrices):
         axis=-2,
     )
     a_inv = adj / det[..., None, None]
-    t_inv = -jnp.einsum("...ij,...j->...i", a_inv, t)
+    t_inv = -jnp.einsum("...ij,...j->...i", a_inv, t, precision=TRANSFORM_PRECISION)
 
     out = jnp.zeros_like(m)
     out = out.at[..., :3, :3].set(a_inv)
@@ -99,9 +99,8 @@ def affine_inverse(matrices):
 def _sum_rows(x):
     """``jnp.sum(x, axis=0)`` unrolled over a small static leading axis.
 
-    Mosaic (Pallas TPU) cannot lower sublane-axis multi_reductions on
-    offset-layout slices; an explicit row sum is pure elementwise VPU work
-    and XLA fuses it identically.
+    An explicit row sum is pure elementwise work that XLA fuses into its
+    neighbours, with a fixed summation order on every backend.
     """
     total = x[0]
     for i in range(1, x.shape[0]):
@@ -130,7 +129,7 @@ def safe_normalize(vectors, axis=0, eps=0.0):
 
     The reference divides by the raw norm (tinygfx/g3d/operations.py:125),
     which NaNs on absorbed rays (zero direction).  Dead rays are first-class
-    in the masked TPU formulation, so the guard is required.
+    in the masked formulation, so the guard is required.
 
     The guard must sit on the *sqrt argument*, not only the division:
     ``d sqrt(s)/ds`` at ``s = 0`` is infinite, and ``0 cotangent * inf``
@@ -192,8 +191,8 @@ def binomial_root(a, b, c, disc=None):
     polyroots = jnp.where(linear_cases, linear_root[None], polyroots)
 
     # constant case: +/-inf encodes "always inside" (c <= 0) vs "never inside"
-    # (row-stack rather than .at[].set: static row updates lower to scatter,
-    # which Pallas TPU cannot lower and XLA fuses poorly)
+    # (row-stack rather than .at[].set: static row updates lower to a
+    # scatter, which XLA fuses poorly)
     c_terms_only = linear_cases & jnp.isclose(b, 0)
     polyroots = jnp.where(c_terms_only, jnp.inf, polyroots)
     row0 = jnp.where(c_terms_only & (c <= 0), -jnp.inf, polyroots[0])
@@ -226,7 +225,7 @@ def reflect(vectors, normals):
     if vectors.ndim == 1 and normals.ndim == 1:
         return vectors - normals * 2 * jnp.dot(vectors, normals)
     if normals.ndim == 1:
-        dots = jnp.einsum("ij,i->j", vectors, normals)
+        dots = jnp.einsum("ij,i->j", vectors, normals, precision=TRANSFORM_PRECISION)
         return vectors - 2 * normals[:, None] * dots
     dots = element_wise_dot(vectors, normals, axis=0)
     return vectors - 2 * normals * dots

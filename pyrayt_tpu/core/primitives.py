@@ -12,7 +12,7 @@ for the CSG interval engine (see pyrayt_tpu.core.csg).  Two deliberate
 deviations from the reference, both in the "impossible ray" regime:
 
 * a degenerate ray (zero direction, i.e. an absorbed ray kept alive by the
-  masked TPU formulation) yields ``(+inf, +inf)`` instead of NaN;
+  masked formulation) yields ``(+inf, +inf)`` instead of NaN;
 * every guarded division/sqrt is NaN-free in both the forward and backward
   pass so ``jax.grad`` through an entire trace stays finite.
 
@@ -70,8 +70,8 @@ PARAM_WIDTH = 6
 
 
 def _sort2(a, b):
-    """(2, n) ascending pair — jnp.sort(axis=0) lowers to a slow variadic
-    sort on TPU; a minimum/maximum pair is pure VPU work."""
+    """(2, n) ascending pair — jnp.sort(axis=0) lowers to a variadic sort;
+    a minimum/maximum pair is plain elementwise work that fuses."""
     return jnp.stack((jnp.minimum(a, b), jnp.maximum(a, b)))
 
 def _origins_directions(rays):
@@ -341,7 +341,7 @@ def leaf_normal_raw3(type_code, pts3, pr, s):
 
     ``pts3`` is a sequence of three (broadcast-compatible) coordinate
     arrays; ``pr`` is anything supporting ``pr[s, i]`` scalar-or-array
-    reads — an SMEM ref row in the fused Pallas kernel
+    reads — a scalar table in the fused GPU kernel
     (ops/fused_trace.py), or a per-ray column view in the engine's
     gather-based wide-scene path (tracer/engine.py).
 

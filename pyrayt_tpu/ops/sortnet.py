@@ -1,13 +1,12 @@
 """Static sorting networks for tiny leading axes.
 
-XLA's general variadic sort lowers catastrophically on TPU for shapes like
-``(m, 1M)`` — measured ~500 ms for ``jnp.sort`` of (6, 2**20) f32 on v5e,
-which made it the entire trace budget.  Every sort in the ray tracer is
-along a *static, tiny* event axis (m = 2..~16 CSG interval events), so each
-one is replaced by a Batcher odd-even mergesort network of compare-exchange
-steps: pure ``minimum/maximum/where`` VPU ops over the ray lane axis, fully
-fusable, no gathers.  The same networks carry payload rows (surface ids,
-parity masks) through the permutation, replacing argsort + take_along_axis.
+XLA's general variadic sort is a poor fit for shapes like ``(m, 1M)``:
+every sort in the ray tracer is along a *static, tiny* event axis (m =
+2..~16 CSG interval events), so each one is replaced by a Batcher odd-even
+mergesort network of compare-exchange steps: pure ``minimum/maximum/where``
+elementwise ops over the ray axis, fully fusable, no gathers.  The same
+networks carry payload rows (surface ids, parity masks) through the
+permutation, replacing argsort + take_along_axis.
 
 Semantics note: a comparator network is deterministic but not stable; on
 *tied* keys the payload order may differ from a stable argsort.  Tied hit

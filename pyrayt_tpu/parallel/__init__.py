@@ -1,4 +1,4 @@
-"""Multi-device execution: ray-axis sharding over TPU meshes.
+"""Multi-device execution: ray-axis sharding over device meshes.
 
 The reference is single-process, single-thread NumPy (SURVEY.md §2.3) —
 this package is the build's first-class replacement.  Rays never interact

@@ -1,11 +1,12 @@
 """Device meshes and RaySet shardings.
 
 Design (SURVEY.md §2.3, §5.7): a 2-D ``('hosts', 'rays')`` mesh where both
-axes shard the ray batch — 'hosts' maps to the DCN dimension of a multi-host
-job and 'rays' to the ICI dimension within a slice.  Collectives (metric /
+axes shard the ray batch — 'hosts' maps to the processes of a multi-host
+job and 'rays' to the devices within a host.  Collectives (metric /
 gradient psums) reduce over both axes; because the scene is replicated there
-is no weight-shard traffic at all, so the hierarchical reduction rides ICI
-first and crosses DCN once with O(#params) scalars.
+is no weight-shard traffic at all, so the hierarchical reduction stays on
+the fast in-host links first and crosses hosts once with O(#params)
+scalars.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 SURVEY.md §2.3's TP row: ray tracing has no weight matrices, but when a
 scene's *leaf count* is huge (lens arrays, microlens grids: thousands of
 single-primitive surfaces) the (n_rays x n_leaves) intersection sweep and
-the scene tables can outgrow a single core's VMEM if replicated.  This
+the scene tables can outgrow one device's memory if replicated.  This
 module shards the LEAF axis over a mesh axis: each device intersects every
 ray against its own leaf subset, folds a *local* nearest positive hit, and
 one min-reduce combines (hit distance, hit leaf) across the axis — the
@@ -198,7 +198,7 @@ def build_wide_sharded_trace_fn(
         # rule, and the trace must stay reverse-mode composable (the min
         # subgradient routes the distance cotangent to the winning shard,
         # exactly the replicated fold's semantics).  Cost: axis_size x n
-        # per generation over ICI.
+        # per generation between devices.
         g_dist = jnp.min(lax.all_gather(dist, axis_name), axis=0)
         winner = (dist == g_dist) & (leaf >= 0)
         cand = jnp.where(winner, leaf, jnp.int32(2**31 - 1))

@@ -13,8 +13,8 @@ Two entry points:
   curvatures, positions, glass coefficients) against a trace-derived loss
   (e.g. RMS spot size).  Rays are sharded (DP), parameters replicated, and
   the loss/grad reductions psum over the mesh — the exact layout SURVEY.md
-  §2.3 prescribes (grad all-reduce is O(10-100) scalars: latency-bound,
-  rides ICI).
+  §2.3 prescribes (the gradient all-reduce is O(10-100) scalars:
+  latency-bound).
 
 Pipeline/expert parallelism are deliberate non-goals (SURVEY.md §2.3): the
 bounce loop is a short sequential ``lax.scan`` and material dispatch is a
@@ -50,23 +50,20 @@ def build_sharded_trace_fn(
     Returns ``fn(params, rays: RaySet) -> TraceResult`` whose record buffers
     stay sharded on device (fetch once at the end — SURVEY.md §7 stage 8).
 
-    ``use_fused`` mirrors ``TraceConfig.use_fused`` for the multi-device
-    path: the fused Pallas kernel is a single-device program, so it runs
-    under ``shard_map`` — each shard traces its rays independently and only
-    the ``generations_run`` scalar is max-reduced.  ``None`` picks it
-    automatically on TPU for supported scenes; ``False`` keeps the XLA
-    engine (which XLA partitions from the sharding annotations alone).
-
-    ``itemsize`` is the ray dtype's byte width used by the VMEM feasibility
-    check (4 for the float32 production path; pass 8 when tracing f64 rays
-    so the check matches what the kernel recomputes at trace time).
+    ``use_fused`` mirrors ``TraceConfig.use_fused``: where the dispatch rule
+    (:func:`pyrayt_tpu.ops.fused_trace.pick_fused`) picks the fused GPU
+    kernel, it runs under ``shard_map`` -- each shard traces its rays
+    independently and only the ``generations_run`` scalar is max-reduced.
+    Otherwise XLA partitions the engine from the sharding annotations.
+    ``itemsize`` is the ray dtype's byte width (4 for f32, 8 for f64).
     """
     from pyrayt_tpu.ops import fused_trace as ft
 
     if use_fused is not None:
         config = TraceConfig(**{**config.__dict__, "use_fused": use_fused})
     if ft.pick_fused(scene.spec, config, itemsize):
-        return _build_shard_mapped_fused(scene, config, mesh, ft)
+        fused = ft.build_fused_trace_fn(scene.spec, scene.materials, config)
+        return _shard_mapped(fused, scene, mesh)
 
     base = engine.build_trace_fn(scene.spec, scene.materials, config)
     replicated = NamedSharding(mesh, P())
@@ -77,20 +74,9 @@ def build_sharded_trace_fn(
     return jax.jit(base, in_shardings=in_shardings)
 
 
-def _build_shard_mapped_fused(scene, config, mesh, ft, vjp: bool = False):
-    """shard_map the fused kernel: per-shard traces, zero collectives except
-    the pmax of generations_run.
-
-    ``vjp=True`` wraps the reverse-mode variant (ops/fused_grad.py): the
-    shard_map transpose then inserts the psum of per-shard parameter
-    cotangents automatically, which is the entire gradient communication of
-    this domain (O(#scene params) scalars over ICI).
-
-    The interpret-vs-Mosaic choice is made at *call* time, not build time: a
-    fn built before TPU initialization must still run compiled once a TPU is
-    the default backend (each variant is built once and memoized)."""
-    shard_map = jax.shard_map
-
+def _shard_mapped(trace_fn, scene, mesh):
+    """shard_map a single-device trace: per-shard traces, no collectives
+    except the max of ``generations_run``."""
     axes = mesh.axis_names
     ray_spec = P(axes)
     vec_spec = P(None, axes)
@@ -112,50 +98,23 @@ def _build_shard_mapped_fused(scene, config, mesh, ft, vjp: bool = False):
         generations_run=P(),
     )
 
-    def build(interpret: bool):
-        if vjp:
-            from pyrayt_tpu.ops import fused_grad
+    def local_trace(params, rays):
+        result = trace_fn(params, rays)
+        return result.replace(
+            generations_run=jax.lax.pmax(result.generations_run, axes)
+        )
 
-            fused = fused_grad.build_fused_vjp_trace_fn(
-                scene.spec, scene.materials, config, interpret=interpret
-            )
-        else:
-            fused = ft.build_fused_trace_fn(
-                scene.spec, scene.materials, config, interpret=interpret
-            )
-
-        def local_trace(params, rays):
-            result = fused(params, rays)
-            # max-reduce generations_run across the mesh.  all_gather + max
-            # instead of pmax: pmax has no differentiation rule, and the
-            # vjp variant linearizes the whole program even though this
-            # integer output carries no tangent.  Cost: axis_size ints.
-            gens = result.generations_run
-            for name in axes:
-                gens = jnp.max(jax.lax.all_gather(gens, name))
-            return result.replace(generations_run=gens)
-
-        mapped = shard_map(
+    return jax.jit(
+        jax.shard_map(
             local_trace,
             mesh=mesh,
             in_specs=(params_specs, rays_specs),
             out_specs=result_specs,
-            # pallas_call out_shapes carry no varying-mesh-axes metadata,
-            # which the replication checker requires; the out_specs above
-            # are the truth, so skip the check
+            # pallas_call outputs carry no varying-mesh-axes metadata, which
+            # the replication checker requires; the out_specs are the truth
             check_vma=False,
         )
-        return jax.jit(mapped)
-
-    built = {}
-
-    def dispatch(params, rays):
-        interpret = not ft.on_tpu()
-        if interpret not in built:
-            built[interpret] = build(interpret)
-        return built[interpret](params, rays)
-
-    return dispatch
+    )
 
 
 def sharded_trace(
@@ -185,39 +144,21 @@ def build_train_step(
     loss_fn: Callable[[engine.TraceResult], jnp.ndarray],
     learning_rate: float = 1e-2,
     param_filter: Optional[Callable[[dict], dict]] = None,
-    use_fused: Optional[bool] = None,
-    itemsize: int = 4,
 ):
     """Build the jitted distributed optimization step.
 
     ``loss_fn(result) -> scalar`` consumes a TraceResult (e.g. RMS spot
     radius at a focal plane).  The returned ``step(params, rays)`` computes
-    ``grad(loss ∘ trace)`` with rays sharded over the mesh and applies one
-    SGD update, returning ``(new_params, loss)``.  All reductions (the
-    scalar loss and every parameter gradient) are mesh-wide psums inserted
-    by XLA from the sharding annotations (XLA engine) or by the shard_map
-    transpose (fused path).
-
-    ``use_fused`` selects the fused Pallas forward + backward kernels
-    (ops/fused_grad.py — measured 12x the XLA scan gradient step on v5e):
-    ``None`` picks them automatically on TPU for supported scenes, ``True``
-    forces (raises if unsupported), ``False`` keeps the XLA engine.
+    ``grad(loss ∘ trace)`` of the XLA scan engine with rays sharded over
+    the mesh and applies one SGD update, returning ``(new_params, loss)``.
+    All reductions (the scalar loss and every parameter gradient) are
+    mesh-wide sums XLA inserts from the sharding annotations.
 
     ``param_filter`` masks which parameter pytree leaves receive updates
     (by zeroing gradient entries), e.g. to optimize only lens transforms.
-
-    ``itemsize`` is the ray dtype's byte width for the VMEM feasibility
-    checks (4 for the f32 production path, 8 for f64 rays).
     """
-    from pyrayt_tpu.ops import fused_trace as ft
-
     cfg = TraceConfig(**{**config.__dict__, "fixed_loop": True})
-    if use_fused is not None:
-        cfg = TraceConfig(**{**cfg.__dict__, "use_fused": use_fused})
-    if ft.pick_fused(scene.spec, cfg, itemsize, need_grad=True):
-        trace = _build_shard_mapped_fused(scene, cfg, mesh, ft, vjp=True)
-    else:
-        trace = engine.build_trace_fn(scene.spec, scene.materials, cfg)
+    trace = engine.build_trace_fn(scene.spec, scene.materials, cfg)
 
     def loss_of(params, rays):
         return loss_fn(trace(params, rays))

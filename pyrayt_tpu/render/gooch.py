@@ -3,7 +3,7 @@
 Behavioral parity with tinygfx/g3d/materials/gooch.py:9-82: per-pixel color
 = mix(warm_shade, cool_shade) with mixture ratio ½(1 + l·n) averaged over
 lights.  Shading is viewport work over at most ~1M pixels with trivial
-math — it runs vectorized NumPy on host (keeping the TPU for the
+math — it runs vectorized NumPy on host (keeping the device for the
 nearest-hit pass, which is the actual hot loop of rendering).
 
 Documented deviation: with more than one light the reference normalizes

@@ -1,7 +1,7 @@
 """Scene flattening: builder objects -> static spec + params pytree.
 
 This is the bridge between the object-oriented builder API (reference
-ergonomics) and the jitted TPU engine.  A compiled scene is split into:
+ergonomics) and the jitted engine.  A compiled scene is split into:
 
 * ``SceneSpec`` — *static*, hashable structure: primitive type codes, CSG
   tree shapes, id/material wiring.  Changing it triggers recompilation.
@@ -101,7 +101,7 @@ def compile_scene(components, require_materials: bool = True) -> CompiledScene:
         elif not isinstance(material, matl.TracableMaterial):
             if require_materials:
                 raise TypeError(
-                    f"material {material!r} is not a TracableMaterial; the TPU "
+                    f"material {material!r} is not a TracableMaterial; the "
                     "engine needs a pure_trace implementation"
                 )
             material = matl.absorber

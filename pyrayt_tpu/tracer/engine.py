@@ -1,11 +1,11 @@
 """The jitted trace engine.
 
-TPU-native replacement for the reference's RayTracer state machine
+Replacement for the reference's RayTracer state machine
 (pyrayt/_pyrayt.py:329-456).  The INITIALIZE -> (PROPAGATE -> INTERACT)* ->
 FINISH loop becomes one jitted program over fixed-size SoA arrays:
 
 * PROPAGATE: every leaf surface is intersected against every ray in one
-  batched pass (rays are the lane axis); static CSG trees combine leaf
+  batched pass (rays are the last axis); static CSG trees combine leaf
   intervals; an unrolled min-merge picks the nearest positive hit
   (parity: _pyrayt.py:370-392).
 * INTERACT: branch-free masked physics — normals are computed per leaf
@@ -25,7 +25,6 @@ from __future__ import annotations
 
 from functools import lru_cache
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,7 +47,7 @@ from pyrayt_tpu.core.operations import (
     safe_normalize,
 )
 from pyrayt_tpu.scene.compile import LEAF, OP_BY_NAME, CompiledScene, SceneSpec
-from pyrayt_tpu.tracer.rayset import RaySet
+from pyrayt_tpu.tracer.rayset import RaySet, pytree_dataclass
 
 __all__ = ["TraceResult", "trace_rays", "build_trace_fn", "N_RECORD_COLS"]
 
@@ -57,7 +56,7 @@ __all__ = ["TraceResult", "trace_rays", "build_trace_fn", "N_RECORD_COLS"]
 N_RECORD_COLS = 15
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class TraceResult:
     records: jnp.ndarray  # (G, 15, n)
     record_mask: jnp.ndarray  # (G, n) bool
@@ -75,10 +74,10 @@ def _local_xyz_rays(m, rays):
 
     ``m`` is one (4, 4) affine object transform (last row 0,0,0,1 — true
     for every transform the builders produce).  Unrolling beats an einsum
-    here twice over: a K=4 contraction gains nothing from the MXU, and at
-    full f32 precision XLA decomposes the einsum into multi-pass
-    convolutions (measured: 28 convolution ops in the gradient HLO) while
-    FMAs stay single-pass exact and fuse into the intersectors.
+    here twice over: a K=4 contraction gains nothing from a matrix unit,
+    and at full f32 precision XLA may split the einsum into multi-pass
+    products, while FMAs stay single-pass exact and fuse into the
+    intersectors.
     """
     p, v = rays[0], rays[1]
     lo = jnp.stack(
@@ -305,7 +304,7 @@ def scene_nearest_hit(spec: SceneSpec, params, rays, group_slots_fn=None):
     (core.intervals; also reverse-mode differentiable); general trees use
     the comparator-network combiner.  Either way the nearest positive hit
     is an unrolled min-fold over the static, tiny event axis — no
-    argmin/gather (TPU gathers serialize; SURVEY §7.4).  Wide groups (see
+    argmin/gather (SURVEY §7.4).  Wide groups (see
     _wide_plan) fold as one batched (trees x rays) sweep instead.
 
     ``group_slots_fn(group_index, slot_matrix) -> (T', L) array`` optionally
@@ -375,7 +374,7 @@ def scene_nearest_hit(spec: SceneSpec, params, rays, group_slots_fn=None):
 
 class _ColView:
     """`pr[s, i] -> column array` adapter so prim.leaf_normal_raw3 reads
-    per-ray gathered parameter rows exactly like SMEM scalars."""
+    per-ray gathered parameter rows exactly like scalar table reads."""
 
     def __init__(self, rows):
         self._rows = rows  # (n, P)
@@ -393,14 +392,11 @@ def _leaf_needs_normal(spec: SceneSpec, s: int) -> bool:
 def _gathered_leaf_table(spec: SceneSpec, params, obj_tx):
     """One packed (S, 16+P+5) per-leaf table for the wide-scene INTERACT.
 
-    A TPU gather's cost scales with the number of gather ops far more than
-    with the gathered row width, so the object transform (16), primitive
-    params (P), and the static per-leaf scalars (type code, needs-normal,
-    normal scale, material slot, public id) pack into ONE table gathered
-    ONCE per generation instead of ~27 per-column gathers — measured worth
-    up to 1.6x on mid-size arrays (docs/design_notes.md round-4 wide-scene
-    table; at large leaf counts the (trees x rays) sweep dominates either
-    way).  Static columns ride as floats (all exactly representable).
+    The object transform (16), primitive params (P), and the static
+    per-leaf scalars (type code, needs-normal, normal scale, material slot,
+    public id) pack into ONE table gathered ONCE per generation instead of
+    ~27 per-column gathers: one pass over the ray axis instead of many.
+    Static columns ride as floats (all exactly representable).
     """
     S = spec.n_leaves
     dtype = obj_tx.dtype
@@ -486,7 +482,7 @@ def _world_normals(spec: SceneSpec, params, obj_tx, hit_leaf, hit_points):
     """Per-ray world normals of each ray's hit leaf, masked-accumulated.
 
     Gather-free: for each leaf (small static count) compute normals for all
-    rays and select by the hit mask — dense VPU work instead of (n,4,4)
+    rays and select by the hit mask — dense elementwise work instead of (n,4,4)
     gathers (parity: world_objects.py:401-418 inverse-transpose transform).
     Leaves whose material is the absorber are skipped entirely: the
     absorber zeroes ray directions without reading a normal.
@@ -609,8 +605,7 @@ def _generation_step(spec, materials, config, params, state, nearest_fn=None):
     with jax.named_scope("normals"):
         if wide:
             # ONE packed-table gather feeds normals, material dispatch and
-            # the record's public surface id (gather count, not row width,
-            # is what TPU gathers charge for)
+            # the record's public surface id
             idx = jnp.clip(hit_leaf, 0, spec.n_leaves - 1)
             leaf_rows = _gathered_leaf_table(spec, params, obj_tx)[idx]
             normals = _world_normals_gathered(
@@ -718,7 +713,7 @@ def _build_trace_fn(
     if config.remat:
         # save only the (13+1)-row inter-generation carry; recompute the
         # step's intermediates (per-leaf hits, CSG intervals, normals) in
-        # the backward pass instead of spilling them to HBM
+        # the backward pass instead of keeping them in device memory
         step = jax.checkpoint(step)
 
     if config.fixed_loop:
@@ -784,30 +779,21 @@ def _build_trace_fn(
 def trace_rays(
     scene: CompiledScene, initial_rays: RaySet, config: TraceConfig
 ) -> TraceResult:
-    """Trace an initial RaySet through a compiled scene.
+    """Trace an initial RaySet through a compiled scene (forward only).
 
-    Forward-only dispatch: on TPU, scenes whose materials are all packed
-    (absorber/mirror/glass) run the fused Pallas kernel
-    (pyrayt_tpu/ops/fused_trace.py) — past 32 leaves, its WIDE variant
-    (in-VMEM tree-axis loop over the same batched groups _wide_plan
-    finds); everything else — CPU/GPU backends, custom Python materials,
-    wide scenes with no batchable groups, VMEM-infeasible generation
-    limits, or ``config.use_fused=False`` — runs the XLA engine.  The backend check
-    happens here at call time, never baked into a cache.  Gradient users
-    compose with :func:`build_trace_fn` (always differentiable) or
-    :func:`pyrayt_tpu.ops.fused_grad.build_fused_vjp_trace_fn` (the fused
-    kernels, ~12x faster on TPU for packed-material scenes).
+    On the GPU, f32 traces of scenes the fused kernel supports (packed
+    materials, interval CSG trees, at most 32 leaves) run that kernel
+    (pyrayt_tpu/ops/fused_trace.py); everything else -- other backends,
+    custom Python materials, wide scenes, or ``config.use_fused=False`` --
+    runs the XLA engine.  The backend check happens here at call time,
+    never baked into a cache.  Gradient users compose with
+    :func:`build_trace_fn`, which is always differentiable.
     """
     from pyrayt_tpu.ops import fused_trace as ft
 
     itemsize = jnp.dtype(initial_rays.positions.dtype).itemsize
     if ft.pick_fused(scene.spec, config, itemsize):
-        # forcing the fused kernel off-TPU runs it interpreted (slow but
-        # correct) instead of failing in the Mosaic compiler; the auto
-        # dispatch above only picks it on TPU, where interpret is False
-        fn = ft.build_fused_trace_fn(
-            scene.spec, scene.materials, config, interpret=not ft.on_tpu()
-        )
+        fn = ft.build_fused_trace_fn(scene.spec, scene.materials, config)
     else:
         fn = build_trace_fn(scene.spec, scene.materials, config)
     return fn(scene.params, initial_rays)

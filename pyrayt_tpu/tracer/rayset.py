@@ -1,15 +1,17 @@
 """Ray storage.
 
 The reference packs rays + metadata in one ``(13, n)`` ndarray subclass
-(pyrayt/_pyrayt.py:13-144).  The TPU-native equivalent is a typed pytree of
-SoA arrays with the ray axis *last* (lane dimension on TPU), which jit /
-vmap / shard naturally.  Field names and defaults match the reference
-(wavelength 0.633 um, index 1, intensity 100, ids = arange).
+(pyrayt/_pyrayt.py:13-144).  Here it is a typed pytree of SoA arrays with
+the ray axis *last*, which jit / vmap / shard naturally.  Field names and
+defaults match the reference (wavelength 0.633 um, index 1, intensity 100,
+ids = arange).
 """
 
 from __future__ import annotations
 
-import flax.struct
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -18,7 +20,16 @@ __all__ = ["RaySet", "concatenate"]
 METADATA_FIELDS = ("generation", "intensity", "wavelength", "index", "id")
 
 
-@flax.struct.dataclass
+def pytree_dataclass(cls):
+    """A frozen dataclass registered as a pytree whose every field is a
+    child, with a ``.replace(**changes)`` copy method."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    names = [f.name for f in dataclasses.fields(cls)]
+    return jax.tree_util.register_dataclass(cls, data_fields=names, meta_fields=[])
+
+
+@pytree_dataclass
 class RaySet:
     """A bundle of rays: homogeneous positions/directions plus metadata.
 

@@ -6,7 +6,7 @@ API parity with pyrayt/_pyrayt.py:189-575: same constructor signature,
 device program (pyrayt_tpu/tracer/engine.py) instead of a Python state
 machine.
 
-TPU-native extras beyond the reference:
+Extras beyond the reference:
 
 * ``trace_device()`` — run the trace and keep results on device (no host
   sync); returns the raw TraceResult pytree.

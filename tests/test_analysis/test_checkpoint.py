@@ -119,3 +119,14 @@ class TestLampReplay:
         np.testing.assert_array_equal(
             np.asarray(replayed.directions), np.asarray(first.directions)
         )
+
+
+class TestFileFormat:
+    def test_checkpoint_is_a_numpy_archive_keyed_by_tree_path(self, tmp_path):
+        path = str(tmp_path / "state.ckpt")
+        save_checkpoint(path, {"theta": {"a": jnp.asarray(2.5)}, "step": 3})
+        with np.load(path) as stored:
+            assert sorted(stored.files) == ["['step']", "['theta']['a']"]
+            assert float(stored["['theta']['a']"]) == 2.5
+        # the atomic write leaves no temporary file behind
+        assert [p.name for p in tmp_path.iterdir()] == ["state.ckpt"]

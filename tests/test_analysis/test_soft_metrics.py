@@ -1,4 +1,4 @@
-"""Smooth (spike-free) objectives (VERDICT round 3, next #4).
+"""Smooth (spike-free) objectives.
 
 The hard-mask metrics jump by orders of magnitude when a marginal ray
 crosses the detector edge (the row enters/leaves the mean).  The soft

@@ -1,7 +1,6 @@
 """docs/api.md coverage: every public (`__all__`) name is documented.
 
-VERDICT r4 found COVERAGE.md's "every __all__ name" claim false (73
-names missing).  This test makes the claim mechanical and permanent: a
+This test makes COVERAGE.md's "every __all__ name" claim mechanical: a
 name counts as documented when it appears as a whole word anywhere in
 docs/api.md (incl. dotted ``module.name`` mentions and tables).
 """
@@ -39,7 +38,6 @@ MODULES = [
     "pyrayt_tpu.tracer.rayset",
     "pyrayt_tpu.tracer.engine",
     "pyrayt_tpu.ops.fused_trace",
-    "pyrayt_tpu.ops.fused_grad",
     "pyrayt_tpu.ops.sortnet",
     "pyrayt_tpu.parallel.mesh",
     "pyrayt_tpu.parallel.trace",

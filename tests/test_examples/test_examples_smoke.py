@@ -1,5 +1,5 @@
 """The shipped examples must run end to end (reference parity: the
-reference ships examples/ scripts; VERDICT round 1 flagged their absence).
+reference ships examples/ scripts).
 
 Smoke tier: tiny step counts, no display.  The physics each example prints
 is separately pinned by tests/test_parity and tests/test_analysis.

@@ -132,31 +132,27 @@ def test_train_step_decreases_loss(system):
 
 
 class TestShardMappedFusedTrace:
-    """The fused Pallas kernel on a device mesh: shard_map runs one kernel
-    per shard (interpret mode on these virtual CPU devices) and must match
-    the unsharded XLA engine exactly."""
+    """The fused kernel on a device mesh: shard_map runs one kernel per
+    shard (interpreted on these virtual CPU devices) and must match the
+    unsharded XLA engine exactly."""
 
     def test_fused_shard_map_matches_engine(self):
-        import jax
-        import numpy as np
+        from pyrayt_tpu.ops import fused_trace
+        from pyrayt_tpu.parallel import trace as ptrace
 
-        from pyrayt_tpu import components, materials
-        from pyrayt_tpu.config import TraceConfig
-        from pyrayt_tpu.parallel import default_mesh, pad_rayset, shard_rayset
-        from pyrayt_tpu.parallel.trace import build_sharded_trace_fn
-        from pyrayt_tpu.scene.compile import compile_scene
-        from pyrayt_tpu.tracer import engine
-
-        lens = components.thick_lens(
-            1.0, -1.0, 0.25, aperture=0.5, material=materials.glass["BK7"]
+        lens = comp.thick_lens(
+            1.0, -1.0, 0.25, aperture=0.5, material=matl.glass["BK7"]
         )
-        det = components.baffle((1.0, 1.0)).move_x(1.0)
+        det = comp.baffle((1.0, 1.0)).move_x(1.0)
         scene = compile_scene([lens, det])
         config = TraceConfig(generation_limit=4, fixed_loop=True)
-        rays = components.ConeOfRays(cone_angle=10.0).move_x(-0.5).generate_rays(64)
+        rays = comp.ConeOfRays(cone_angle=10.0).move_x(-0.5).generate_rays(64)
 
         mesh = default_mesh(n_devices=8, n_hosts=2)
-        fn = build_sharded_trace_fn(scene, config, mesh, use_fused=True)
+        kernel = fused_trace.build_fused_trace_fn(
+            scene.spec, scene.materials, config, interpret=True
+        )
+        fn = ptrace._shard_mapped(kernel, scene, mesh)
         padded, n_valid = pad_rayset(rays, mesh.size)
         placed = shard_rayset(padded, mesh)
         sharded = fn(scene.params, placed)
@@ -172,33 +168,3 @@ class TestShardMappedFusedTrace:
         recs_r = np.asarray(reference.records) * mask_r[:, None, :]
         np.testing.assert_allclose(recs_s, recs_r, rtol=1e-12, atol=1e-12)
         assert int(sharded.generations_run) == int(reference.generations_run)
-
-
-def test_fused_vjp_train_step_matches_xla(system):
-    """build_train_step(use_fused=True): the shard-mapped fused forward +
-    backward kernels produce the same update as the XLA scan path (the
-    shard_map transpose psums per-shard parameter cotangents)."""
-    from pyrayt_tpu.analysis.metrics import rms_spot_radius
-
-    scene, source = system
-    mesh = default_mesh(n_devices=8)
-    config = TraceConfig(generation_limit=4, fixed_loop=True)
-
-    step_xla = build_train_step(
-        scene, config, mesh, rms_spot_radius, learning_rate=1e-2, use_fused=False
-    )
-    step_fused = build_train_step(
-        scene, config, mesh, rms_spot_radius, learning_rate=1e-2, use_fused=True
-    )
-
-    rays, _ = pad_rayset(source.generate_rays(64), mesh.size)
-    rays = shard_rayset(rays, mesh)
-
-    px, lx = step_xla(scene.params, rays)
-    pf, lf = step_fused(scene.params, rays)
-    np.testing.assert_allclose(float(lf), float(lx), rtol=1e-12)
-    for key in px:
-        np.testing.assert_allclose(
-            np.asarray(pf[key]), np.asarray(px[key]), rtol=1e-8, atol=1e-12,
-            err_msg=f"params[{key!r}] update differs",
-        )

@@ -1,6 +1,5 @@
 """Surface-axis (TP) sharding: the sharded nearest-hit fold must equal the
-replicated one on the 8-virtual-device CPU mesh (SURVEY.md §2.3 TP row;
-VERDICT round 2, next #9).
+replicated one on the 8-virtual-device CPU mesh (SURVEY.md §2.3 TP row).
 
 Distances compare at 1-ulp-scale rtol, not bit-exact: XLA contracts the
 transform FMAs differently for different leaf-axis extents, so the same

@@ -1,5 +1,4 @@
-"""Full surface-sharded trace equality (VERDICT round 3, #2 — closes the
-SURVEY §2.3 TP row's "partial").
+"""Full surface-sharded trace equality (the SURVEY §2.3 TP row).
 
 A 4x4 microlens array's tree axis shards over 8 virtual devices; the full
 trace (normals, materials, records, generation loop) must equal the

@@ -1,5 +1,5 @@
 """Statistical parity of Lamp/StaticLamp vs the reference's Lambertian
-source (VERDICT round 2, next #8).
+source.
 
 The RNG deviation is by design (JAX counter-based PRNG vs global
 np.random, documented on Lamp), so frames can never match ray-by-ray —

@@ -1,7 +1,7 @@
 """North-star parity: trace the reference's named workloads in BOTH
 frameworks and assert the result DataFrames match (BASELINE.md).
 
-Workloads (the three named in BASELINE.md / VERDICT):
+Workloads (the three named in BASELINE.md):
 
 * convex collimator — /root/reference/examples/convex_collimator.py:29-47
   and int_test_ray_plane_intersection.py:42-54 (same system)
@@ -180,8 +180,8 @@ class TestCondenserTutorial:
 
 
 class TestMirrorWorkloads:
-    """Reference-parity for mirror systems (BASELINE config #4 gap from
-    VERDICT round 2): spherical retro-focus, parabolic collimator, an
+    """Reference-parity for mirror systems (BASELINE config #4):
+    spherical retro-focus, parabolic collimator, an
     off-axis parabola, and a 45-degree plane-mirror fold.  Match:
     /root/reference/pyrayt/components.py:245-398."""
 
@@ -344,7 +344,7 @@ def test_frame_dtypes_and_columns(reference):
 
 
 class TestF32ReferenceParity:
-    """Production-dtype parity (VERDICT round 2, next #7): the collimator
+    """Production-dtype parity: the collimator
     traced at float32 against the reference's float64 frame.  Row count and
     segment structure must be EXACTLY equal (f32 must not change which
     segments exist); physical columns match at f32-appropriate tolerance."""

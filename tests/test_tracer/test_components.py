@@ -195,7 +195,7 @@ class TestPrism:
 
 
 class TestApertureSemantics:
-    """aperture() opening behavior (VERDICT round 1, weak #6): rays through
+    """aperture() opening behavior: rays through
     the central opening transmit untouched; rays hitting the rim absorb
     (reference: pyrayt/components.py:451-468)."""
 

@@ -1,9 +1,9 @@
-"""Wide-scene (batched same-shape tree) engine path (VERDICT round 3, #2).
+"""Wide-scene (batched same-shape tree) engine path.
 
 Lens/microlens arrays compile one batched (trees x rays) sweep per tree
 signature instead of unrolling per leaf.  The batched path must produce
 frames identical to the unrolled engine, stay differentiable end-to-end,
-and keep the fused Pallas kernel out of scenes it cannot compile.
+and keep the fused GPU kernel out of scenes it does not cover.
 """
 
 import jax
@@ -125,17 +125,45 @@ def test_wide_gradient_matches_finite_differences():
     assert abs(float(grad) - fd) < 1e-4 * max(1.0, abs(fd))
 
 
-def test_wide_scenes_dispatch_to_the_wide_fused_kernel():
+def test_wide_scenes_run_the_xla_engine(monkeypatch):
     from pyrayt_tpu.ops import fused_trace as ft
 
     comps, _ = _mla_scene(5)  # 25 lenslets x 2 leaves + detector = 51 leaves
     scene = compile_scene(comps)
-    assert scene.spec.n_leaves > ft._FUSED_MAX_LEAVES
-    # past the unrolled cap the narrow kernel declines, the WIDE variant
-    # takes over (round-4 addition; parity in tests/test_ops/test_fused_wide.py)
+    assert scene.spec.n_leaves > ft._MAX_LEAVES
+    # past the kernel's leaf cap the batched XLA groups run, on every
+    # platform; forcing the kernel raises
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     assert not ft.supports_fused(scene.spec)
-    assert ft.supports_fused_wide(scene.spec)
-    assert ft.pick_fused(scene.spec, TraceConfig(use_fused=True))
-    # ...and the gradient path has its own wide backward under the leaf
-    # cap (tests/test_ops/test_fused_wide_grad.py)
-    assert ft.pick_fused(scene.spec, TraceConfig(use_fused=True), need_grad=True)
+    assert not ft.pick_fused(scene.spec, TraceConfig())
+    with pytest.raises(ValueError, match="use_fused=True"):
+        ft.pick_fused(scene.spec, TraceConfig(use_fused=True))
+
+
+def test_per_lenslet_radii_gradients_match_finite_differences():
+    """Freeform arrays: each lenslet's own radius gets its own cotangent."""
+    from pyrayt_tpu.analysis import build_objective
+    from pyrayt_tpu.analysis.metrics import rms_spot_radius
+    from pyrayt_tpu.scene.objects import fresh_ids
+
+    rays = _grid_rays(144, 3.0)
+    config = TraceConfig(generation_limit=4, fixed_loop=True)
+
+    def build(radii):
+        lenslets = comp.microlens_array(radii, 0.25, 3, 3, 1.0)
+        return lenslets + [comp.baffle((6.0, 6.0)).move_x(4.0)]
+
+    r0 = jnp.linspace(1.8, 2.2, 9)
+    with fresh_ids():
+        det_id = float(build(r0)[-1].get_id())
+    objective = build_objective(
+        build, rays, lambda res: rms_spot_radius(res, det_id), config
+    )
+    grad = np.asarray(jax.grad(objective)(r0))
+    assert grad.shape == (9,) and np.isfinite(grad).all()
+    assert np.count_nonzero(grad) == 9  # every lenslet moves the spot
+    eps = 1e-5
+    for k in (0, 4, 8):
+        step = jnp.zeros(9).at[k].set(eps)
+        fd = (float(objective(r0 + step)) - float(objective(r0 - step))) / (2 * eps)
+        assert abs(grad[k] - fd) < 1e-4 * max(1.0, abs(fd)), (k, grad[k], fd)

@@ -21,7 +21,9 @@ import pathlib
 import sys
 
 MAX_LEN = 100
-DEFAULT_PATHS = ["pyrayt_tpu", "tests", "bench.py", "__graft_entry__.py", "examples"]
+DEFAULT_PATHS = [
+    "pyrayt_tpu", "tests", "bench.py", "chip_smoke.py", "__graft_entry__.py", "examples",
+]
 
 
 def check_file(path: pathlib.Path):
